@@ -77,7 +77,7 @@ def proximal_gradient(H, g, lo, hi):
 def admm(H, g, lo, hi, rho=10.0):
     """ADMM splitting x-update (linear solve) / z-update (clip) / dual."""
     n = g.shape[0]
-    # factor once outside the loop — the TPU analogue of the reference's
+    # factor once outside the loop — the JAX analogue of the reference's
     # repeated np.linalg.solve is a cached Cholesky
     chol = jax.scipy.linalg.cho_factor(H + rho * jnp.eye(n))
 

@@ -1,7 +1,7 @@
-"""raocp_tpu — a TPU-native framework for multistage Risk-Averse Optimal
-Control Problems (RAOCPs) on scenario trees.
+"""raocp_tpu — a JAX framework for multistage Risk-Averse Optimal Control
+Problems (RAOCPs) on scenario trees, run on an NVIDIA GPU.
 
-Built from scratch for JAX/XLA on TPU: all per-node computations are batched
+Built from scratch for JAX/XLA: all per-node computations are batched
 over stacked arrays (vmap/einsum style), the Chambolle-Pock iteration runs as
 a single jitted step inside ``lax.while_loop``, and multi-device scaling uses
 ``jax.sharding`` over the node axis.

@@ -19,10 +19,9 @@ Anderson acceleration works as follows:
   w_{k+1} = T(w_k) — which guarantees the safeguarded iteration inherits
   the convergence of plain CP.
 
-TPU-first layout (round 3): everything is carried as PYTREES — an earlier
-design flat-packed (z, eta) with ``ravel_pytree`` before every T-map call,
-which re-tiles the whole iterate each evaluation (the same (8, 128)
-relayout tax whose removal bought the plain loop 26%). Two structural
+Layout: everything is carried as PYTREES, as in the plain loop — an
+earlier design flat-packed (z, eta) with ``ravel_pytree`` before every
+T-map call, which copies the whole iterate each evaluation. Two structural
 consequences:
 
 * **Extended vectors.** Every point is carried as W = (z, eta, Lz, L'eta).
@@ -156,8 +155,8 @@ def run_cp_anderson(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     old default 0.9 measured 2.0 T-evals/iteration (every candidate
     rejected and re-evaluated) and only a 13% iteration cut on the
     9,841-node benchmark. theta = 1.0 (accept when not worse) measured
-    1.04 evals/iteration and a 40% cut (10,175 -> 6,150 iterations,
-    BENCH_accel_r04.jsonl) while the monotone-residual safeguard still
+    1.04 evals/iteration and a 40% cut (10,175 -> 6,150 iterations)
+    while the monotone-residual safeguard still
     rules out divergence.
     """
     dt = sp.dtype
@@ -282,9 +281,9 @@ def run_cp_supermann(sp: StackedProblem, z0, eta0, x0, alpha, tol,
     reason Anderson's safeguard moved to theta = 1.0 in round 4: the CP
     map contracts ~1e-4 per step near convergence, so demanding a strict
     0.99 contraction per accepted candidate rejects nearly everything —
-    the round-4 artifact shows 1.94 T-evals/iteration (every K1 candidate
-    evaluated AND discarded for a plain step) and 11,150 iterations on
-    the headline config (BENCH_accel_r04.jsonl). Not-worse acceptance
+    it measured 1.94 T-evals/iteration (every K1 candidate evaluated AND
+    discarded for a plain step) and 11,150 iterations on the headline
+    config. Not-worse acceptance
     plus the r_safe + summable-eps monotonicity envelope still rules out
     divergence. ``memory`` defaults to 5: each history row is a FULL
     extended vector, and the direction apply + Broyden push cost ~2 x

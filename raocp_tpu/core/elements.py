@@ -1,7 +1,7 @@
 """Problem elements: node kinds, linear dynamics, quadratic costs, AVaR risk.
 
 Capability parity with the reference's element layer (``raocp/core/nodes.py``,
-``dynamics.py``, ``costs.py``, ``risks.py``), redesigned for the TPU build:
+``dynamics.py``, ``costs.py``, ``risks.py``), redesigned for a batched build:
 an element is an immutable declarative *value* (enum / frozen dataclass),
 and anything derived from it — matrix square roots, the conic form of a risk
 ambiguity set — is produced by a pure realization function at build time.

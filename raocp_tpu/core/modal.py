@@ -5,10 +5,10 @@ sqrt(P_l), ...) contain only a handful of distinct matrices — one per Markov
 mode. A dense [num_nodes, a, b] stack makes every batched matvec an
 HBM-bandwidth-bound batched GEMV (reads num_nodes*a*b matrix entries per
 apply). Mode-grouped storage computes ALL modes with one dense
-[num_nodes, b] @ [b, M*a] matmul (MXU-friendly, reads only the vectors) and
-then selects each node's mode — a large win whenever M << a.
+[num_nodes, b] @ [b, M*a] matmul (a dense GEMM that reads only the vectors)
+and then selects each node's mode — a large win whenever M << a.
 
-This is a TPU-native optimisation with no counterpart in the reference
+This is an accelerator-side optimisation with no counterpart in the reference
 (which stores per-node Python objects — raocp_spec.py:19-24) and changes no
 numerics: ``matvec``/``rmatvec`` produce bit-identical results to the dense
 path for M == 1 and numerically identical contractions otherwise.

@@ -2,7 +2,8 @@
 
 Capability parity with the reference tree layer
 (``/root/reference/raocp/core/scenario_tree.py:21`` ``ScenarioTree`` and
-``:243`` ``MarkovChainScenarioTreeFactory``), re-designed for TPU use:
+``:243`` ``MarkovChainScenarioTreeFactory``), re-designed for batched
+device kernels:
 
 * Node data lives in flat int/float numpy arrays (ancestor, stage,
   probability, w-index) ordered stage-major, so every stage is a contiguous
@@ -42,7 +43,7 @@ class ScenarioTree:
 
     Parity: reference ``scenario_tree.py:21``. Accessor API matches the
     reference; extra properties expose the index plans used by the batched
-    TPU kernels (children ranges, padded child tables, stage offsets).
+    device kernels (children ranges, padded child tables, stage offsets).
 
     :param stages: ``stages[i]`` = stage of node ``i``
     :param ancestors: ``ancestors[i]`` = ancestor (parent) of node ``i``
@@ -188,7 +189,7 @@ class ScenarioTree:
     def set_data_at_node(self, node_idx, data_dict: dict) -> None:
         self.__data[node_idx] = data_dict
 
-    # -- TPU index-plan accessors ------------------------------------------
+    # -- index-plan accessors for the device kernels -----------------------
 
     @property
     def ancestors(self) -> np.ndarray:

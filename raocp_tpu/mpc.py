@@ -7,12 +7,12 @@ freshly sampled mode transition.
 
 The reference has no closed-loop runner (its `main.py` is a single open-loop
 solve); this module is the framework capability BASELINE.json's config 5
-("full risk-averse MPC closed-loop run") asks for. TPU-wise the key property
-is that all per-mode problems share array shapes (for a dense transition
-matrix — or are cached per root mode otherwise), so every MPC step reuses
-the same compiled Chambolle-Pock loop; only the stacked-problem *values*
-(probabilities, risk vectors, kernel projectors) change between steps, and
-those are rebuilt host-side.
+("full risk-averse MPC closed-loop run") asks for. On the device the key
+property is that all per-mode problems share array shapes (for a dense
+transition matrix — or are cached per root mode otherwise), so every MPC
+step reuses the same compiled Chambolle-Pock loop; only the stacked-problem
+*values* (probabilities, risk vectors, kernel projectors) change between
+steps, and those are rebuilt host-side.
 """
 
 import dataclasses
@@ -23,6 +23,7 @@ import numpy as np
 
 from raocp_tpu.core.spec import RAOCP
 from raocp_tpu.solver import Solver, SolverResult
+from raocp_tpu.utils.compilation import compile_clock
 
 __all__ = ["ClosedLoopResult", "RiskAverseMPC"]
 
@@ -37,6 +38,8 @@ class ClosedLoopResult:
     stage_costs: np.ndarray   # [T] realized x'Qx + u'Ru per step
     iterations: np.ndarray    # [T] CP iterations per solve
     solve_times: np.ndarray   # [T] wall-clock seconds per solve
+    build_times: np.ndarray   # [T] seconds building a new root-mode solver
+    compile_times: np.ndarray  # [T] seconds of solve_times spent compiling
     statuses: np.ndarray      # [T] solver status (0 = converged)
 
     @property
@@ -166,10 +169,8 @@ class RiskAverseMPC:
         balancing, adaptive PDHG), forwarded to every per-step solve.
         ``relax`` defaults to ``"auto"`` (rho = 1.8): MPC runs are exactly
         the long repeated solves where over-relaxation's ~40% iteration
-        cut beats its per-iteration axpy cost — measured 1.9x on the
-        1e5-node closed loop (2278 s -> 1196 s, BENCH_configs_r04.jsonl)
-        and never slower on any BASELINE config (BENCH_relax_r04.jsonl).
-        Pass ``relax=1.0`` for reference-parity iterations.
+        cut should outweigh its per-iteration axpy cost (not measured on
+        the GPU yet). Pass ``relax=1.0`` for reference-parity iterations.
         """
         rng = np.random.default_rng(seed)
         x = np.asarray(initial_state, dtype=np.float64).reshape(-1)
@@ -178,10 +179,13 @@ class RiskAverseMPC:
 
         states, inputs, modes = [x.copy()], [], [w]
         costs, iters, times, statuses = [], [], [], []
+        builds, compiles = [], []
         prev = None                    # (primal, dual) for warm starting
 
         for _ in range(num_steps):
+            tic = time.perf_counter()
             solver, problem = self.solver_for_mode(w)
+            builds.append(time.perf_counter() - tic)
             ws = None
             if warm_start and prev is not None:
                 sp = solver.stacked
@@ -189,12 +193,14 @@ class RiskAverseMPC:
                         and prev[1].e1.shape == (sp.nl_pad, sp.Y)):
                     ws = prev
             tic = time.perf_counter()
-            res: SolverResult = solver.solve(
-                x, max_iters=max_iters, tol=tol, warm_start=ws,
-                check_every=check_every, unroll=unroll, relax=relax,
-                step_ratio=step_ratio, adaptive=adaptive,
-                chunk_iters=chunk_iters)
+            with compile_clock() as compiling:
+                res: SolverResult = solver.solve(
+                    x, max_iters=max_iters, tol=tol, warm_start=ws,
+                    check_every=check_every, unroll=unroll, relax=relax,
+                    step_ratio=step_ratio, adaptive=adaptive,
+                    chunk_iters=chunk_iters)
             times.append(time.perf_counter() - tic)
+            compiles.append(compiling())
             u = np.asarray(res.primal.u[0], dtype=np.float64)
             if warm_start:
                 prev = (res.primal, res.dual)
@@ -215,4 +221,5 @@ class RiskAverseMPC:
             states=np.asarray(states), inputs=np.asarray(inputs),
             modes=np.asarray(modes), stage_costs=np.asarray(costs),
             iterations=np.asarray(iters), solve_times=np.asarray(times),
-            statuses=np.asarray(statuses))
+            statuses=np.asarray(statuses), build_times=np.asarray(builds),
+            compile_times=np.asarray(compiles))

@@ -3,7 +3,7 @@
 The reference implements these as Python loops over nodes
 (``raocp/core/operators.py:19`` ``ell`` and ``:55`` ``ell_transpose``). Here
 each is ONE fused batched computation over the stacked pytrees: parent-index
-gathers, batched einsum matmuls (MXU), and padded child-table reductions —
+gathers, batched einsum matmuls, and padded child-table reductions —
 no per-node control flow, fully jittable and shardable over the node axis.
 
 Mathematical definition (per nonleaf node i, child j, leaf l):

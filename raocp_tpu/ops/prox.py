@@ -4,8 +4,8 @@ prox_f — reference ``cache.py:248-317`` — is the projection of (x, u) onto
 the dynamics subspace via a backward/forward dynamic-programming sweep, plus
 the projection of (y, tau+, s+) onto the risk-recursion kernel. Both stage
 sweeps are trace-time loops over contiguous stage slices (static shapes ⇒
-XLA tiles every slice as one batched matmul on the MXU); the kernel
-projection is a single precomputed-projector batched matmul.
+XLA lowers every slice to one batched matmul); the kernel projection is a
+single precomputed-projector batched matmul.
 
 prox_g* — reference ``cache.py:321-393`` — is computed via the Moreau
 identity: scale, epigraph half-shifts, batched cone/box projections, and the
@@ -57,13 +57,6 @@ def project_dynamics(sp: StackedProblem, x_in, u_in, x0):
     Forward rollout (``cache.py:282-288``):
       u_i = K_i x_i + d_i ;  x_j = Abar_j x_i + B_j d_i
     """
-    from raocp_tpu.ops.pallas_sweep import (project_dynamics_pallas,
-                                            sweep_eligible)
-
-    if sweep_eligible(sp):
-        # one fused TPU kernel: both sweeps, VMEM-resident intermediates
-        return project_dynamics_pallas(sp, x_in, u_in, x0)
-
     ss = sp.stage_start
     N, NL, n, m = sp.num_nodes, sp.num_nonleaf, sp.n, sp.m
     ns = sp.num_stages

@@ -9,7 +9,7 @@ of any kind); this module is the capability it lacks. Strategy:
 * The solver's batched kernels are written as *global* array programs, so
   under jit GSPMD partitions them automatically: elementwise/batched-matmul
   node ops stay local, ancestor/child gathers at shard frontiers and the
-  residual max-norms lower to ICI collectives (all-gather / all-reduce).
+  residual max-norms lower to collectives (all-gather / all-reduce).
 * Trees are stage-major, so an equal split of the node axis puts whole
   subtrees on one device once the stage width exceeds the device count —
   frontier traffic is the (small) root-side spine, as planned in SURVEY §7.8.
@@ -119,14 +119,14 @@ def shard_variables(tree, mesh: Mesh):
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> int:
-    """Initialise multi-host JAX (the TPU-native replacement for the
-    communication backend the reference lacks — SURVEY §5: no NCCL/MPI).
+    """Initialise multi-host JAX (the communication backend the reference
+    lacks — SURVEY §5: no NCCL/MPI).
 
-    Thin wrapper over ``jax.distributed.initialize``: on TPU pods all
-    arguments are discovered from the environment, on other platforms they
-    must be passed. After this, :func:`make_mesh` over ``jax.devices()``
-    spans every host's chips and the jitted solver programs run SPMD with
-    GSPMD-inserted ICI/DCN collectives. Returns the global device count.
+    Thin wrapper over ``jax.distributed.initialize``: pass the coordinator
+    address, process count and process id (nothing discovers them on a GPU
+    cluster). After this, :func:`make_mesh` over ``jax.devices()`` spans
+    every host's devices and the jitted solver programs run SPMD with
+    GSPMD-inserted collectives. Returns the global device count.
     No-op if the distributed runtime is already initialised.
     """
     try:

@@ -4,8 +4,8 @@
 Solves the BASELINE config-3-sized SOC-network problem for a batch of B
 initial states in ONE vmapped device program, and compares against B
 sequential ``solve`` calls. The interesting number is the batching
-efficiency: on TPU the per-stage matmuls of a ~3k-node problem underfill
-the MXU, so lanes are nearly free until the chip saturates.
+efficiency: the per-stage matmuls of a ~3k-node problem are too small to
+fill the device, so lanes are nearly free until it saturates.
 
 Usage:  python scripts/bench_batch.py [--batch 8] [--small]
 
@@ -32,8 +32,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
     if args.small:
         jax.config.update("jax_platforms", "cpu")
 
@@ -72,9 +73,10 @@ def main() -> None:
     bat_s = time.perf_counter() - t0
 
     assert all(r.converged for r in seq) and all(r.converged for r in bat)
-    # On real TPU float32, batched-vs-unbatched matmul tiling can perturb an
-    # iterate enough to shift a lane across a check_every boundary — allow
-    # counts to differ by one check period instead of asserting equality.
+    # In float32 on the device, batched and unbatched matmuls may sum in
+    # another order, which can shift a lane across a check_every boundary —
+    # allow counts to differ by one check period instead of asserting
+    # equality.
     for rs, rb in zip(seq, bat):
         diff = abs(rs.num_iters - rb.num_iters)
         if diff > 25:

@@ -73,8 +73,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
 
     from raocp_tpu.core.stacked import build_stacked
     from raocp_tpu.models import (demo_problem, random_network_problem,

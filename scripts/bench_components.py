@@ -9,6 +9,7 @@ the headline bench.
 """
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -35,10 +36,12 @@ def _time(fn, *args, iters=200):
 
     out = loop(*args)
     jax.block_until_ready(out)
-    tic = time.perf_counter()
-    out = loop(*args)
-    jax.block_until_ready(out)
-    return (time.perf_counter() - tic) / iters * 1e6  # us
+    best = float("inf")
+    for _ in range(3):
+        tic = time.perf_counter()
+        jax.block_until_ready(loop(*args))
+        best = min(best, time.perf_counter() - tic)
+    return best / iters * 1e6  # us
 
 
 def main():
@@ -49,8 +52,11 @@ def main():
     ap.add_argument("--iters", type=int, default=200)
     args = ap.parse_args()
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
+    # the solver's own matmul precision (full float32, no TF32/bf16)
+    jax.config.update("jax_default_matmul_precision", "float32")
 
     from raocp_tpu.models import random_network_problem
     from raocp_tpu.ops.operator import ell, ell_t
@@ -96,19 +102,14 @@ def main():
 
     t_step = _time(step_only, z, eta, ell(sp, z), ell_t(sp, eta), iters=it)
 
-    print(f"nodes={sp.num_nodes} n={sp.n} m={sp.m}")
-    print(f"noop (loop+dep)     {t_noop:8.1f} us")
-    print(f"L apply             {t_ell:8.1f} us")
-    print(f"L' apply            {t_ellt:8.1f} us")
-    print(f"dynamics projection {t_dyn:8.1f} us")
-    print(f"kernel projection   {t_ker:8.1f} us")
-    print(f"prox_f total        {t_pf:8.1f} us")
-    print(f"g* projections      {t_gp:8.1f} us")
-    print(f"max-norm            {t_norm:8.1f} us")
-    print(f"CP step (no resid)  {t_step:8.1f} us")
-    print(f"FULL CP iteration   {t_full:8.1f} us")
-    print(f"  (2L' + L + prox_f + g* = "
-          f"{2 * t_ellt + t_ell + t_pf + t_gp:8.1f} us)")
+    dev = jax.devices()[0]
+    print(json.dumps({
+        "platform": dev.platform, "device_kind": dev.device_kind,
+        "num_nodes": sp.num_nodes, "n": sp.n, "m": sp.m, "unit": "us",
+        "noop": t_noop, "ell": t_ell, "ell_t": t_ellt,
+        "project_dynamics": t_dyn, "project_kernel": t_ker,
+        "prox_f": t_pf, "g_conj_projections": t_gp, "max_norm": t_norm,
+        "cp_step": t_step, "cp_iteration": t_full}))
 
 
 if __name__ == "__main__":

@@ -62,8 +62,9 @@ def main():
 
     if args.virtual:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
 
     from raocp_tpu.core.stacked import build_stacked
     from raocp_tpu.core.variables import Dual, Primal

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Sweep loop-control configs (check_every, unroll, pallas) on the headline
-bench problem and print iter/s for each — used to pick bench.py's production
-configuration on real hardware."""
+"""Sweep loop-control configs (check_every, unroll) on the headline bench
+problem and print iter/s for each — used to pick bench.py's production
+configuration on the device."""
 
 import os
 import sys
@@ -15,8 +15,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
 
     from raocp_tpu.models import random_network_problem
     from raocp_tpu.solver import Solver, _power_iteration, _run_cp
@@ -36,29 +37,23 @@ def main():
 
     iters = 200
     configs = [(25, 1), (25, 5), (25, 25), (50, 10), (100, 20)]
-    for pallas in ("0", "1"):
-        os.environ["RAOCP_TPU_PALLAS"] = pallas
-        for ce, un in configs:
-            try:
-                t_c0 = time.perf_counter()
-                out = _run_cp(sp, z0, eta0, x0j, alpha, alpha, tol0, iters,
-                              check_every=ce, unroll=un)
-                jax.block_until_ready(out)
-                t_compile = time.perf_counter() - t_c0
-                best = float("inf")
-                for _ in range(3):
-                    tic = time.perf_counter()
-                    out = _run_cp(sp, z0, eta0, x0j, alpha, alpha, tol0,
-                                  iters, check_every=ce, unroll=un)
-                    jax.block_until_ready(out)
-                    best = min(best, time.perf_counter() - tic)
-                n = int(out[2])
-                print(f"pallas={pallas} check_every={ce:3d} unroll={un:3d}  "
-                      f"{n / best:8.1f} iter/s   (warm+compile {t_compile:.1f}s)",
-                      flush=True)
-            except Exception as e:  # noqa: BLE001
-                print(f"pallas={pallas} check_every={ce:3d} unroll={un:3d}  "
-                      f"FAILED: {e}", flush=True)
+    for ce, un in configs:
+        t_c0 = time.perf_counter()
+        out = _run_cp(sp, z0, eta0, x0j, alpha, alpha, tol0, iters,
+                      check_every=ce, unroll=un)
+        jax.block_until_ready(out)
+        t_compile = time.perf_counter() - t_c0
+        best = float("inf")
+        for _ in range(3):
+            tic = time.perf_counter()
+            out = _run_cp(sp, z0, eta0, x0j, alpha, alpha, tol0,
+                          iters, check_every=ce, unroll=un)
+            jax.block_until_ready(out)
+            best = min(best, time.perf_counter() - tic)
+        n = int(out[2])
+        print(f"check_every={ce:3d} unroll={un:3d}  "
+              f"{n / best:8.1f} iter/s   (warm+compile {t_compile:.1f}s)",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ import glob
 import gzip
 import json
 import os
+import re
 import sys
+import tempfile
 from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -21,8 +23,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
 
     from raocp_tpu.models import random_network_problem
     from raocp_tpu.solver import Solver, _run_cp
@@ -45,7 +48,7 @@ def main():
                   check_every=check_every, unroll=unroll)
     jax.block_until_ready(out)
 
-    trace_dir = "/tmp/raocp_trace"
+    trace_dir = tempfile.mkdtemp(prefix="raocp_trace_")
     with jax.profiler.trace(trace_dir):
         out = _run_cp(sp, z0, eta0, x0j, alpha, alpha, tol0, iters,
                       check_every=check_every, unroll=unroll)
@@ -59,13 +62,16 @@ def main():
     with gzip.open(files[-1], "rt") as fh:
         trace = json.load(fh)
 
-    # device-op events: pick the process with TPU/device in its name
+    # device-op events: the GPU planes (/device:GPU:N) and nothing else
     pids = {}
     for ev in trace.get("traceEvents", []):
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             pids[ev["pid"]] = ev["args"].get("name", "")
     dev_pids = {p for p, name in pids.items()
-                if "TPU" in name or "/device" in name.lower()}
+                if re.match(r"/device:GPU:\d+", name)}
+    if not dev_pids:
+        raise RuntimeError("no /device:GPU:N plane in the trace; processes: "
+                           f"{sorted(pids.values())}")
 
     agg = defaultdict(lambda: [0.0, 0])
     total = 0.0

@@ -9,13 +9,16 @@ this script reports:
   compiled executable (not hand counts),
 * measured device time — serialised ``fori_loop`` timing harness (a data
   dependency between trips stops XLA from overlapping them),
-* the roofline bound max(bytes / HBM_BW, flops / peak) for the chip, and
-  the achieved fraction of that bound.
+* the roofline bound max(bytes / HBM_BW, flops / peak) for the device,
+  and the achieved fraction of that bound.
 
-The CP iteration is strongly bandwidth-bound (arithmetic intensity ~1-3
-flops/byte vs the v5e ridge at ~240), so "speed of light" here means HBM
+The CP iteration is expected to be bandwidth-bound: its batched GEMVs do
+about 2 flops per float32 element read, far below the H100's float32 ridge
+of 67e12 / 3.35e12 = 20 flops/byte, so "speed of light" here means HBM
 speed: 100% of roofline = every byte of problem data + iterate moved once
-at full bandwidth. Writes one JSON line per row plus a summary table.
+at full bandwidth. Peaks are the published ones; the card's power limit
+(``nvidia-smi --query-gpu=power.limit``) belongs beside every share. Writes
+one JSON line per row plus a summary table.
 """
 
 import json
@@ -29,16 +32,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# peak dense-matmul FLOP/s (bf16) and HBM bytes/s per chip generation
+# Published peaks per JAX device_kind: (float32 FLOP/s, HBM bytes/s).
+# NVIDIA H100 data sheet, SXM part at its 700 W limit: 67 TFLOP/s float32
+# outside the tensor cores (the solver runs full-float32 products, never
+# TF32) and 3.35 TB/s of HBM3.
 _CHIP_SPECS = {
-    "TPU v4": (275e12, 1.23e12),
-    "TPU v5 lite": (197e12, 8.19e11),   # v5e
-    "TPU v5e": (197e12, 8.19e11),
-    "TPU v5": (459e12, 2.765e12),       # v5p
-    "TPU v5p": (459e12, 2.765e12),
-    "TPU v6 lite": (918e12, 1.64e12),   # v6e / Trillium
-    "TPU v6e": (918e12, 1.64e12),
+    "NVIDIA H100 80GB HBM3": (67e12, 3.35e12),
 }
+
+
+def chip_peaks(device_kind: str):
+    """(peak float32 FLOP/s, peak HBM bytes/s) of a device kind; a kind
+    missing from the table is an error, not a default."""
+    try:
+        return _CHIP_SPECS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device_kind {device_kind!r}; add them "
+            "to _CHIP_SPECS with their source") from None
 
 UNROLL = 25
 
@@ -83,8 +94,9 @@ def main() -> None:
     args = ap.parse_args()
     unroll = args.unroll
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_raocp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from raocp_tpu.utils.compilation import enable_compile_cache
+
+    enable_compile_cache()
 
     from raocp_tpu.models import random_network_problem
     from raocp_tpu.ops.operator import ell, ell_t
@@ -93,7 +105,7 @@ def main() -> None:
                                   cp_iteration)
 
     dev = jax.devices()[0]
-    peak_flops, hbm_bw = _CHIP_SPECS.get(dev.device_kind, (None, None))
+    peak_flops, hbm_bw = chip_peaks(dev.device_kind)
 
     problem, x0 = random_network_problem(
         num_states=50, num_inputs=20, num_modes=3, num_stages=args.stages,
@@ -129,18 +141,17 @@ def main() -> None:
             flops, nbytes = _cost(fn, *args)
             secs = _time(fn, *args, iters=iters)
         flops, nbytes, secs = flops / per, nbytes / per, secs / per
-        bound = None
-        if hbm_bw:
-            bound = max(nbytes / hbm_bw,
-                        flops / peak_flops if peak_flops else 0.0)
+        bound = max(nbytes / hbm_bw, flops / peak_flops)
         r = {
             "component": name,
             "flops": flops,
             "bytes": nbytes,
             "intensity_flops_per_byte": round(flops / nbytes, 3),
             "measured_us": round(secs * 1e6, 1),
-            "roofline_us": round(bound * 1e6, 1) if bound else None,
-            "pct_of_roofline": round(100 * bound / secs, 1) if bound else None,
+            "roofline_us": round(bound * 1e6, 1),
+            "pct_of_roofline": round(100 * bound / secs, 1),
+            "bound_by": "hbm" if nbytes / hbm_bw >= flops / peak_flops
+            else "flops",
         }
         rows.append(r)
         print(json.dumps(r), flush=True)
@@ -156,17 +167,16 @@ def main() -> None:
     row("production trip / iteration", trip, z, eta, Lz, Lt, per=unroll,
         iters=max(2, 100 // unroll))
 
-    print(f"\nchip: {dev.device_kind}  "
-          f"peak {peak_flops/1e12 if peak_flops else 0:.0f} TF/s bf16, "
-          f"HBM {hbm_bw/1e9 if hbm_bw else 0:.0f} GB/s")
+    print(f"\ndevice: {dev.device_kind}  "
+          f"peak {peak_flops/1e12:.0f} TF/s float32, "
+          f"HBM {hbm_bw/1e9:.0f} GB/s")
     hdr = (f"{'component':34s} {'GFLOP':>8s} {'MB':>8s} {'meas us':>8s} "
            f"{'SOL us':>7s} {'%SOL':>6s}")
     print(hdr)
     for r in rows:
         print(f"{r['component']:34s} {r['flops']/1e9:8.3f} "
               f"{r['bytes']/1e6:8.1f} {r['measured_us']:8.1f} "
-              f"{(r['roofline_us'] or 0):7.1f} "
-              f"{(r['pct_of_roofline'] or 0):6.1f}")
+              f"{r['roofline_us']:7.1f} {r['pct_of_roofline']:6.1f}")
 
 
 if __name__ == "__main__":

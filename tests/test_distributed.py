@@ -1,10 +1,10 @@
 """Two-process jax.distributed test (SURVEY §5 'distributed communication
-backend'; VERDICT r2 item 1c).
+backend').
 
 Spawns two fresh Python processes, each with 2 virtual CPU devices, joined
 via ``initialize_distributed`` on a localhost coordinator — the CPU
-analogue of a 2-host TPU pod (cross-process collectives ride Gloo instead
-of DCN). Each process shards the demo problem over the 4-device GLOBAL
+analogue of a 2-host cluster (cross-process collectives ride Gloo instead
+of NCCL). Each process shards the demo problem over the 4-device GLOBAL
 mesh and runs sharded operator applies plus the full CP loop; both
 processes must agree with each other and with a single-process reference
 computed here.

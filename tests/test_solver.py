@@ -442,8 +442,9 @@ def test_chunked_solve_matches_plain(demo_result):
 
 def test_chunked_solve_elastic_recovery(demo_result, monkeypatch, tmp_path):
     """Elastic recovery of chunked solves: a transient device fault
-    mid-chunk is retried from the last host snapshot with identical
-    results; a persistent fault writes a resume checkpoint."""
+    mid-chunk is retried, with a warning that names it, from the last host
+    snapshot with identical results; a persistent fault writes a resume
+    checkpoint."""
     import jax
 
     import raocp_tpu.solver as solver_mod
@@ -460,7 +461,8 @@ def test_chunked_solve_elastic_recovery(demo_result, monkeypatch, tmp_path):
         return real_run(*args, **kwargs)
 
     monkeypatch.setattr(solver_mod, "_run_cp", flaky_run)
-    res = solver.solve(x0, max_iters=2000, tol=1e-3, chunk_iters=300)
+    with pytest.warns(RuntimeWarning, match="injected device fault"):
+        res = solver.solve(x0, max_iters=2000, tol=1e-3, chunk_iters=300)
     assert res.converged and res.num_iters == plain.num_iters
     np.testing.assert_allclose(res.xi_history, plain.xi_history, atol=1e-12)
     for a, b in zip(res.primal, plain.primal):
@@ -477,7 +479,8 @@ def test_chunked_solve_elastic_recovery(demo_result, monkeypatch, tmp_path):
         return real_run(*args, **kwargs)
 
     monkeypatch.setattr(solver_mod, "_run_cp", flaky_first)
-    res1 = solver.solve(x0, max_iters=2000, tol=1e-3, chunk_iters=300)
+    with pytest.warns(RuntimeWarning, match="after iteration 0"):
+        res1 = solver.solve(x0, max_iters=2000, tol=1e-3, chunk_iters=300)
     assert res1.converged and res1.num_iters == plain.num_iters
     np.testing.assert_allclose(res1.xi_history, plain.xi_history,
                                atol=1e-12)
@@ -493,7 +496,8 @@ def test_chunked_solve_elastic_recovery(demo_result, monkeypatch, tmp_path):
 
     monkeypatch.setattr(solver_mod, "_run_cp", dead_run)
     ckpt = str(tmp_path / "fault.npz")
-    with pytest.raises(RuntimeError, match="saved to"):
+    with pytest.warns(RuntimeWarning, match="persistent fault"), \
+            pytest.raises(RuntimeError, match="saved to"):
         solver.solve(x0, max_iters=2000, tol=1e-3, chunk_iters=300,
                      checkpoint_on_fault=ckpt)
     # the checkpoint resumes through the standard warm-start machinery

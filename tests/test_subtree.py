@@ -320,7 +320,8 @@ def test_subtree_chunked_elastic_recovery(uniform, monkeypatch, tmp_path):
         return real_run(*args, **kwargs)
 
     monkeypatch.setattr(stp, "run_cp", flaky)
-    res = solver.solve(x0, max_iters=4000, tol=1e-3, chunk_iters=150)
+    with pytest.warns(RuntimeWarning, match="injected device fault"):
+        res = solver.solve(x0, max_iters=4000, tol=1e-3, chunk_iters=150)
     assert res.converged and res.num_iters == plain.num_iters
     np.testing.assert_allclose(res.xi_history, plain.xi_history,
                                atol=1e-12)
@@ -336,7 +337,8 @@ def test_subtree_chunked_elastic_recovery(uniform, monkeypatch, tmp_path):
 
     monkeypatch.setattr(stp, "run_cp", dead)
     ckpt = str(tmp_path / "fault.npz")
-    with pytest.raises(RuntimeError, match="saved to"):
+    with pytest.warns(RuntimeWarning, match="persistent fault"), \
+            pytest.raises(RuntimeError, match="saved to"):
         solver.solve(x0, max_iters=4000, tol=1e-3, chunk_iters=150,
                      checkpoint_on_fault=ckpt)
     z, eta, k = SolverResult.load_checkpoint(ckpt)

@@ -3,7 +3,7 @@
 Mirrors the reference test strategy (tests/test_scenario_tree.py): exact node
 counts, ancestors, stages, probabilities, w-values for a fixed 3-state Markov
 chain, plus randomized conditional-probability checks, plus the index plans
-the TPU kernels rely on.
+the batched device kernels rely on.
 """
 
 import numpy as np
